@@ -1,11 +1,11 @@
-"""cirkit-tpu: a TPU-native probabilistic-circuit and tensor-network framework.
+"""cirkit-tpu: a JAX probabilistic-circuit and tensor-network framework.
 
-A from-scratch JAX/XLA/Pallas rebuild with the capabilities of
+A from-scratch JAX/XLA rebuild with the capabilities of
 april-tools/cirkit: a symbolic circuit IR, a rule-based compiler that lowers
 circuits to folded, jit-compiled evaluation plans under pluggable semirings,
 tractable circuit operators (integrate / multiply / differentiate /
 conjugate), region-graph and tensor-factorization templates, and
-data-parallel training over TPU meshes.
+data- and tensor-parallel training over device meshes.
 """
 
 __version__ = "0.1.1"

@@ -482,7 +482,7 @@ def _cross_sum(a: np.ndarray, b: np.ndarray, lp: np.ndarray, r: np.ndarray) -> _
 
 
 # --------------------------------------------------------------------------
-# device (jitted) carrier kernels — the r5 on-TPU path (VERDICT r4 weak #5)
+# device (jitted) carrier programs
 # --------------------------------------------------------------------------
 # The host walk is float64 and exact, but it is a CPU island: at
 # distill_tree scale (~784 leaf + ~784 sum pairs of 256-wide units) the
@@ -493,9 +493,9 @@ def _cross_sum(a: np.ndarray, b: np.ndarray, lp: np.ndarray, r: np.ndarray) -> _
 # handful of programs and then dispatch in ~ms), and only the final
 # (K_p, K_q) root carriers are pulled. Stage 2 of the sum reduction is
 # vectorized over the p-side output units with a masked shift instead of
-# the host loop. Accuracy follows the device float width (f32 on TPU:
-# ~1e-4 nats, the platform's exp cap; float64 under the CPU test config,
-# where it pins against the host path at 1e-9).
+# the host loop. Accuracy follows the device float width (f32: ~1e-4 nats;
+# float64 under the CPU test config, where it pins against the host path
+# at 1e-9).
 
 
 def _dev_cross_input_tab(v1, v2):
@@ -604,7 +604,7 @@ def expected_loglikelihood(
     kernels (the traversal stays host Python; jax.jit caches one program
     per distinct pair shape, so homogeneous circuits — e.g. distill_tree
     outputs — compile a handful of programs and then dispatch in
-    milliseconds). Accuracy follows the device float width: f32 on TPU
+    milliseconds). Accuracy follows the device float width: f32
     (~1e-4 nats), float64 under an x64 config, where it matches the host
     path at 1e-9 (pinned in tests/backend/test_cross.py).
 
@@ -891,7 +891,7 @@ def _mc_log_terms(cc_p, cc_q, store_p, store_q, num_samples, key, batch_size):
 def _support_violated(lq: np.ndarray) -> bool:
     """True when q assigned zero density to a drawn sample. Log-space
     forwards floor ``log 0`` at the dtype minimum rather than ``-inf``
-    (the kernels' -1e30-style clamps, or float32's ~-3.4e38 minimum), so
+    (the -1e30-style clamps, or float32's ~-3.4e38 minimum), so
     "zero" means any value at or beyond the -1e30 clamp — far below any
     real normalized log density, but above the clamps so they're caught."""
     return bool(np.any(~np.isfinite(lq)) or np.any(lq <= -1e29))

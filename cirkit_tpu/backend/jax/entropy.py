@@ -133,7 +133,7 @@ def _mix(lz, hh, w):
     ``log Z_o = lse_m(log w_om + lz_m)`` and
     ``H_o = sum_m pi_m H_m - sum_m pi_m log pi_m`` with
     ``log pi_m = log w_om + lz_m - log Z_o``. Every ``sum_m pi_m (...)``
-    term is an exp-weighted matmul over M (MXU, HIGHEST precision) — the
+    term is an exp-weighted matmul over M (HIGHEST precision) — the
     (F, B, O, M) score tensor is never materialized:
     ``sum_m pi_m log pi_m = (sum_m w~ e_m lz_m + sum_m (w~ log w~)_m e_m)
     / A_o - log A_o`` after the per-(f, b) max shift, where ``e = exp(lz -

@@ -4,8 +4,8 @@ Rebuild of ``cirkit/backend/torch/graph/folding.py:17-281`` +
 ``compiler.py:335-506``. Folding vectorizes the circuit: within each
 frontier of the layerwise topological ordering, layers with identical
 ``fold_settings`` are merged into a single layer with a leading fold axis F,
-turning thousands of tiny ops into a few large batched kernels — mandatory
-on TPU, where unfolded graphs compile to thousands of tiny HLOs.
+turning thousands of tiny ops into a few large batched kernels — unfolded
+graphs compile to thousands of tiny launches.
 
 Parameter graphs fold node-wise: grouped layers are guaranteed (by their
 fold_settings, which embed each parameter graph's structural signature) to

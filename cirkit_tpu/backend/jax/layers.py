@@ -45,10 +45,10 @@ bare array, or a (logmag, sign) pair under the signed semiring)."""
 def softmax_logits_slot(param: JaxParameter) -> str | None:
     """If ``param`` is exactly ``TensorSlot -> Softmax(last axis)``, return
     the slot name, else None. Layers use this to route the most common sum
-    parameterization to the softmax-fused Pallas kernels, so the normalized
-    weights are never materialized in HBM (the reparam-fusion requirement of
-    SURVEY §7; contrast with the reference where torch evaluates the
-    parameter graph eagerly, ``parameters/parameter.py:180-188``)."""
+    parameterization to the ``*_softmax`` contractions, which normalize the
+    logits inside the op (the reparam-fusion requirement of SURVEY §7;
+    contrast with the reference where torch evaluates the parameter graph
+    eagerly, ``parameters/parameter.py:180-188``)."""
     nodes = list(param.topological_ordering())
     if len(nodes) != 2:
         return None
@@ -252,8 +252,8 @@ class JaxSumLayer(JaxInnerLayer):
 
         x = tmap(flat, x)
         if self._logits_slot is not None:
-            # Softmax-parameterized weights: fuse the normalization into the
-            # contraction kernel instead of materializing (F, Ko, H*Ki) in HBM.
+            # Softmax-parameterized weights: the contraction takes the logits
+            # and normalizes them itself.
             return self.semiring.matmul_softmax(x, store[self._logits_slot])
         return self.semiring.matmul(x, self.weight(store))
 
@@ -483,8 +483,7 @@ class JaxCategoricalLayer(JaxExpFamilyLayer):
         logits = self._log_probs(store)  # (F, K, N)
         # One-hot selection matmul instead of take_along_axis: identical
         # values (0/1 selection at HIGHEST precision), but the backward is a
-        # matmul rather than a scatter-add — ~25% faster training steps on
-        # TPU for the MNIST-shaped circuits. Zero-probability categories are
+        # matmul rather than a scatter-add. Zero-probability categories are
         # clamped from -inf to the finite minimum so the unselected
         # 0 * -inf products cannot produce NaNs (exp still underflows to 0).
         logits = jnp.maximum(logits, jnp.finfo(logits.dtype).min)
@@ -545,8 +544,8 @@ class JaxCategoricalLayer(JaxExpFamilyLayer):
     def sample_selected(self, store, key, sel):
         logits = self._log_probs(store)  # (F, K, C)
         # floor -inf (zero-probability categories) at -1e30, NOT finfo.min:
-        # the one-hot selection matmul's bf16 operand conversion on TPU
-        # rounds |finfo(f32).min| back to -inf (RTNE overflow) and the
+        # a reduced-precision operand conversion (TF32, bf16) of the one-hot
+        # selection matmul rounds |finfo(f32).min| up to -inf and the
         # 0 * -inf = NaN corruption survives; HIGHEST precision keeps the
         # selected logits exact (a bf16 pass would perturb the draw)
         logits = jnp.maximum(logits, jnp.float32(-1e30).astype(logits.dtype))

@@ -63,8 +63,8 @@ class JaxTuckerLayer(JaxInnerLayer):
 
     def forward(self, store: Store, x) -> jnp.ndarray:
         if self.arity == 2:
-            # The hot configuration: fused VMEM-resident Pallas contraction,
-            # with softmax reparameterizations folded into the kernel.
+            # The hot configuration: the arity-2 Tucker contraction, with a
+            # softmax reparameterization normalized inside the op.
             x1 = tmap(lambda a: a[:, 0], x)
             x2 = tmap(lambda a: a[:, 1], x)
             if self._logits_slot is not None:

@@ -112,8 +112,16 @@ def _uniform(key, shape, fan_in, dtype):
 
 
 def _grouped_linear(x: jnp.ndarray, w: jnp.ndarray, b: jnp.ndarray | None) -> jnp.ndarray:
-    """x (G_in, N, D), w (G, D, P) -> (G, N, P), broadcasting G_in=1."""
-    y = jnp.einsum("gnd,gdp->gnp", jnp.broadcast_to(x, (w.shape[0], *x.shape[1:])), w)
+    """x (G_in, N, D), w (G, D, P) -> (G, N, P), broadcasting G_in=1.
+
+    A shared input (G_in=1) is contracted against every group's weight as
+    one GEMM, never copied per group: a Tucker core's head has one group per
+    fold over K^3 quadrature points, and the copy would hold
+    F x K^3 x net_dim values (53 GB for the K=64 MNIST flagship)."""
+    if x.shape[0] == 1:
+        y = jnp.einsum("nd,gdp->gnp", x[0], w)
+    else:
+        y = jnp.einsum("gnd,gdp->gnp", x, w)
     return y if b is None else y + b[:, None, :]
 
 

@@ -4,10 +4,9 @@ Rebuild of ``cirkit/backend/torch/semiring.py:19-514``: a (⊕, ⊗) algebra the
 compiled plan evaluates under, with a string registry and cross-semiring
 morphisms. The log-space semirings implement the numerically-stable
 max-shift log-einsum-exp: shift each semiring operand by its clamped max
-along the contracted axis, exponentiate, run the einsum in linear space on
-the MXU, then take the log and add the shifts back. On TPU the hot shapes of
-this contraction are additionally served by a fused Pallas kernel
-(``cirkit_tpu/ops/lse_einsum.py``).
+along the contracted axis, exponentiate, run the einsum in linear space,
+then take the log and add the shifts back. The lse-sum dense and Tucker
+contractions live in ``cirkit_tpu/ops/lse_einsum.py``.
 """
 
 from __future__ import annotations
@@ -27,13 +26,11 @@ from cirkit_tpu.backend.jax.utils import (
     to_complex_dtype,
 )
 from cirkit_tpu.ops.lse_einsum import (
-    clse_matmul_parts,
-    fallback_precision,
+    _as_f32,
     lse_matmul,
     lse_matmul_softmax,
     lse_tucker2,
     lse_tucker2_softmax,
-    slse_dispatch,
 )
 
 Semiring = type["SemiringImpl"]
@@ -53,6 +50,12 @@ class SemiringImpl(ABC):
 
     _registry: ClassVar[dict[str, Semiring]] = {}
     _morphisms: ClassVar[dict[tuple[Semiring, Semiring], Callable]] = {}
+    # Dot precision of the contractions; None takes JAX's default
+    # (Precision.DEFAULT: TF32 on an H100). Semirings whose sums cancel
+    # (signed, complex) need more: TF32 made their squared circuits' log
+    # values up to 3e-3 relative off a float64 evaluation on an H100,
+    # HIGHEST 2e-4 (PERF.md, "Precision").
+    precision: ClassVar[jax.lax.Precision | None] = None
 
     def __new__(cls) -> "SemiringImpl":
         raise TypeError("Semirings are static namespaces and cannot be instantiated")
@@ -73,6 +76,14 @@ class SemiringImpl(ABC):
             return func
 
         return _decorator
+
+    @classmethod
+    def dot_precision(cls) -> jax.lax.Precision | None:
+        """The semiring's :attr:`precision`, unless JAX's own default
+        (``jax.default_matmul_precision``) is set, which then wins."""
+        if jax.config.jax_default_matmul_precision is not None:
+            return None
+        return cls.precision
 
     @staticmethod
     def list() -> Iterable[str]:
@@ -127,7 +138,7 @@ class SemiringImpl(ABC):
                     equation,
                     *xs,
                     *(cls.cast(o) for o in operands),
-                    precision=fallback_precision(),
+                    precision=cls.dot_precision(),
                 )
 
         else:
@@ -138,11 +149,11 @@ class SemiringImpl(ABC):
                 for op, spec in zip(all_ops, equation[:-1]):
                     args.extend((op, list(spec)))
                 args.append(list(equation[-1]))
-                return jnp.einsum(*args, precision=fallback_precision())
+                return jnp.einsum(*args, precision=cls.dot_precision())
 
         return cls.apply_reduce(func, *inputs, dim=dim, keepdim=keepdim)
 
-    # -- fused contractions (overridden with Pallas kernels where available) ---
+    # -- the sum-layer contractions ---------------------------------------------
     @classmethod
     def matmul(cls, x: jnp.ndarray, w: jnp.ndarray) -> jnp.ndarray:
         """The dense sum-layer contraction: semiring values ``x`` (F, B, I)
@@ -165,16 +176,17 @@ class SemiringImpl(ABC):
 
     @classmethod
     def matmul_softmax(cls, x: jnp.ndarray, theta: jnp.ndarray) -> jnp.ndarray:
-        """:meth:`matmul` with weights ``softmax(theta, axis=-1)``; the
-        lse-sum override fuses the normalization into the kernel."""
-        return cls.matmul(x, jax.nn.softmax(theta, axis=-1))
+        """:meth:`matmul` with weights ``softmax(theta, axis=-1)``; bf16
+        logits are normalized in f32."""
+        return cls.matmul(x, jax.nn.softmax(_as_f32(theta), axis=-1))
 
     @classmethod
     def tucker2_softmax(
         cls, x1: jnp.ndarray, x2: jnp.ndarray, theta: jnp.ndarray
     ) -> jnp.ndarray:
-        """:meth:`tucker2` with core weights ``softmax(theta, axis=-1)``."""
-        return cls.tucker2(x1, x2, jax.nn.softmax(theta, axis=-1))
+        """:meth:`tucker2` with core weights ``softmax(theta, axis=-1)``;
+        bf16 logits are normalized in f32."""
+        return cls.tucker2(x1, x2, jax.nn.softmax(_as_f32(theta), axis=-1))
 
     # -- abstract algebra ------------------------------------------------------
     @classmethod
@@ -277,7 +289,7 @@ class LSESumSemiring(SemiringImpl):
     def apply_reduce(cls, func, *xs, dim, keepdim):
         # The max-shift trick (ref: semiring.py:383-408): shift by the clamped
         # max along the contracted axis so exp() never overflows, contract in
-        # linear space (MXU), then log and add the shifts back.
+        # linear space, then log and add the shifts back.
         maxs = [_finfo_clamp(jnp.max(x, axis=dim, keepdims=True)) for x in xs]
         exps = [jnp.exp(x - m) for x, m in zip(xs, maxs)]
         out = func(*exps)
@@ -288,7 +300,6 @@ class LSESumSemiring(SemiringImpl):
 
     @classmethod
     def matmul(cls, x, w):
-        # Fused Pallas log-einsum-exp on TPU f32; XLA max-shift elsewhere.
         return lse_matmul(x, cls.cast(w))
 
     @classmethod
@@ -307,6 +318,8 @@ class LSESumSemiring(SemiringImpl):
 @SemiringImpl.register("complex-lse-sum")
 class ComplexLSESumSemiring(SemiringImpl):
     """Complex log-space evaluation (for squared / SoS circuits)."""
+
+    precision = jax.lax.Precision.HIGHEST
 
     @classmethod
     def cast(cls, x: jnp.ndarray) -> jnp.ndarray:
@@ -349,52 +362,25 @@ class ComplexLSESumSemiring(SemiringImpl):
             shift = shift.squeeze(dim)
         return csafelog(out) + shift
 
-    @classmethod
-    def matmul(cls, x, w):
-        # Fused split-real Pallas kernel on TPU complex64: the max-shifted
-        # complex contraction runs in VMEM; only the csafelog epilogue (log
-        # magnitude + phase — Mosaic has no atan2) stays in XLA.
-        x = cls.cast(x)
-        parts = clse_matmul_parts(x, cls.cast(w))
-        if parts is not None:
-            yr, yi, m = parts
-            return csafelog(jax.lax.complex(yr, yi)) + m
-        return super().matmul(x, w)
-
-    @classmethod
-    def tucker2(cls, x1, x2, w):
-        # The complex Tucker contraction routes through the matmul kernel via
-        # the log-space outer *sum* (complex adds are cheap; the linear-space
-        # outer product the XLA fallback materializes is what the kernel
-        # avoids). Falls back when the kernel declines the shape.
-        x1, x2 = cls.cast(x1), cls.cast(x2)
-        f, b, k1 = x1.shape
-        k2 = x2.shape[-1]
-        x12 = (x1[:, :, :, None] + x2[:, :, None, :]).reshape(f, b, k1 * k2)
-        parts = clse_matmul_parts(x12, cls.cast(w))
-        if parts is not None:
-            yr, yi, m = parts
-            return csafelog(jax.lax.complex(yr, yi)) + m
-        return super().tucker2(x1, x2, w)
-
 
 @SemiringImpl.register("signed-lse-sum")
 class SignedLSESemiring(SemiringImpl):
     """Signed log-space evaluation: values are ``(log|f|, sign)`` pairs of
     real arrays (sign in {-1, 0, +1}).
 
-    A TPU-native alternative to :class:`ComplexLSESumSemiring` for circuits
+    An all-real alternative to :class:`ComplexLSESumSemiring` for circuits
     whose *parameters* are real but whose values may go negative — squared /
     sum-of-squares circuits, differentials, polynomials (the reference
     evaluates these under its complex semiring,
     ``backend/torch/semiring.py:411-476``). When every parameter is real the
-    phase of any circuit value is 0 or pi, so carrying a sign is exact — and
-    the whole program stays in f32, which XLA maps onto the MXU (complex64
-    programs do not even compile on some TPU runtimes). Gradients of the
+    phase of any circuit value is 0 or pi, so carrying a sign is exact, and
+    the whole program stays in real f32 arithmetic. Gradients of the
     sign component are zero (it is piecewise constant); magnitudes use
     :func:`safelog` so exact cancellations to 0 produce zeroed gradients
     like the reference's ``ComplexSafeLog``.
     """
+
+    precision = jax.lax.Precision.HIGHEST
 
     @classmethod
     def cast(cls, x: jnp.ndarray) -> jnp.ndarray:
@@ -457,28 +443,15 @@ class SignedLSESemiring(SemiringImpl):
     def matmul(cls, x, w):
         a, s = x
         w = cls.cast(w)
-        out = slse_dispatch((a, s), w, softmax=False, tucker=False)
-        if out is not None:
-            return out
         m = _clamp_max_last(a)
-        y = jnp.einsum("fbi,foi->fbo", s * jnp.exp(a - m), w, precision=fallback_precision())
+        y = jnp.einsum("fbi,foi->fbo", s * jnp.exp(a - m), w, precision=cls.dot_precision())
         a_out, s_out = cls._from_linear(y)
         return a_out + m, s_out
-
-    @classmethod
-    def matmul_softmax(cls, x, theta):
-        out = slse_dispatch(tuple(x), cls.cast(theta), softmax=True, tucker=False)
-        if out is not None:
-            return out
-        return cls.matmul(x, jax.nn.softmax(theta, axis=-1))
 
     @classmethod
     def tucker2(cls, x1, x2, w):
         (a1, s1), (a2, s2) = x1, x2
         w = cls.cast(w)
-        out = slse_dispatch((a1, s1, a2, s2), w, softmax=False, tucker=True)
-        if out is not None:
-            return out
         k1, k2 = a1.shape[-1], a2.shape[-1]
         w = w.reshape(w.shape[0], w.shape[1], k1, k2)
         m1, m2 = _clamp_max_last(a1), _clamp_max_last(a2)
@@ -487,19 +460,10 @@ class SignedLSESemiring(SemiringImpl):
             s1 * jnp.exp(a1 - m1),
             s2 * jnp.exp(a2 - m2),
             w,
-            precision=fallback_precision(),
+            precision=cls.dot_precision(),
         )
         a_out, s_out = cls._from_linear(y)
         return a_out + m1 + m2, s_out
-
-    @classmethod
-    def tucker2_softmax(cls, x1, x2, theta):
-        out = slse_dispatch(
-            tuple(x1) + tuple(x2), cls.cast(theta), softmax=True, tucker=True
-        )
-        if out is not None:
-            return out
-        return cls.tucker2(x1, x2, jax.nn.softmax(theta, axis=-1))
 
 
 def _clamp_max_last(x: jnp.ndarray) -> jnp.ndarray:

@@ -1,12 +1,10 @@
 """Serving-store utilities: bf16-resident weights for inference.
 
-The flagship forward pass is HBM-bound on the sum-style weight stream
-(~1.6 GB of Tucker cores per batch on the MNIST QuadGraph K=64 circuit).
-The fused kernels compute in bf16 (or bf16x3 splits) regardless of the
-stored precision, so storing those weights in bfloat16 halves the dominant
-HBM stream without changing the kernel math beyond the initial rounding —
-the kernels accept bf16 weight operands directly and normalize softmax rows
-in f32 inside VMEM (see ops/lse_einsum.py).
+The flagship forward pass reads ~1.6 GB of sum-style weights (the Tucker
+cores of the MNIST QuadGraph K=64 circuit) per batch. Storing those weights
+in bfloat16 halves that stream; the contractions (ops/lse_einsum.py)
+promote bf16 weights to f32 and normalize softmax rows in f32, so only the
+initial rounding changes.
 
 This is an inference-oriented transform: keep training in f32 and cast a
 copy for serving. Gradients through a bf16 store work (dL/dw accumulates in
@@ -33,7 +31,7 @@ from cirkit_tpu.backend.jax.parameters import (
 
 def weight_slots(circuit: JaxCircuit) -> set[str]:
     """The store slots streamed as sum-style contraction weights: softmax
-    logits slots (the kernels' fused parameterization) and plain weight
+    logits slots (the layers' fused parameterization) and plain weight
     slots, for dense/mixing/fused Tucker/CPT/TensorDot layers."""
     slots: set[str] = set()
     for layer in circuit.layers:
@@ -44,7 +42,7 @@ def weight_slots(circuit: JaxCircuit) -> set[str]:
         if getattr(layer, "_logits_slot", None) is not None:
             slots.add(layer._logits_slot)
             continue
-        # only slots the kernels stream *directly* (bare weights or a 0/1
+        # only slots the contractions read *directly* (bare weights or a 0/1
         # MixingWeight placement): casting a slot feeding e.g. an Exp
         # reparameterization would amplify the rounding through the map
         nodes = list(layer.weight.topological_ordering())
@@ -61,9 +59,8 @@ def weight_slots(circuit: JaxCircuit) -> set[str]:
 
 def bf16_weight_store(circuit: JaxCircuit, store: Store) -> Store:
     """A copy of ``store`` with the circuit's contraction-weight slots cast
-    to bfloat16. Forward accuracy matches the ``CIRKIT_TPU_FAST=1``
-    round-to-nearest-bf16 grade (~4e-3 worst case) while halving the
-    weight HBM traffic; all other slots keep their dtype."""
+    to bfloat16: round-to-nearest-bf16 weight grade (~4e-3 worst case)
+    while halving the weight bytes; all other slots keep their dtype."""
     slots = weight_slots(circuit)
     return {
         k: (jnp.asarray(v).astype(jnp.bfloat16) if k in slots else v)
@@ -92,10 +89,8 @@ def export_circuit(
     ``query="integrate"`` exports ``(store, x, mask) -> (B, O, K)``
     per-sample marginals (the :func:`masked_evaluate` program — runtime
     evidence masks ride along into serving). ``x`` fixes the batch
-    shape/dtype. ``platforms`` defaults to the tracing backend: artifacts
-    traced on TPU embed the fused Mosaic kernels (TPU-only); trace on CPU
-    (``jax_platforms="cpu"``) for a pure-XLA artifact portable across
-    ``platforms=("cpu", "tpu", "cuda")``."""
+    shape/dtype. ``platforms`` defaults to the tracing backend; pass e.g.
+    ``platforms=("cpu", "cuda")`` for an artifact that runs on both."""
     import jax
     from jax import export as jax_export
 

@@ -34,7 +34,7 @@ score ``-inf`` and arbitrary states — filter by score.
 
 Scaling note: this is the XLA moderate-scale path (dense (F, B, O, M*T)
 candidate tensors at Tucker entries); it is not meant for the
-1560-fold flagship the way the 1-best Pallas routing kernels are.
+1560-fold flagship the way the 1-best routing passes are.
 """
 
 from __future__ import annotations

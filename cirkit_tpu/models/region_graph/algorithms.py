@@ -453,7 +453,7 @@ def _maximum_spanning_tree(
     minimum spanning tree into a maximum one over non-negative MI weights and
     its eccentricity-minimizing root choice. The algorithm is the classic
     Chow-Liu/HCLT recipe (Chow & Liu 1968; Liu & Van den Broeck 2021); it is
-    O(D^2) host-side scipy work with no TPU-first alternative, so it is kept
+    O(D^2) host-side scipy work with no device-side alternative, so it is kept
     as a cited port rather than re-expressed.
     """
     mst = sp.csgraph.minimum_spanning_tree(-(np.asarray(adj_matrix) + 1.0), overwrite=True)
@@ -482,7 +482,7 @@ def _categorical_mutual_info(
     sequence (including the exact diagonal fix), and the
     ``sum(p * (log p - log q))`` MI estimate follow it step for step. This is
     host-side preprocessing for ChowLiuTree (runs once, on numpy, before any
-    circuit exists), so a TPU-first redesign does not apply; kept as a cited
+    circuit exists), so a device-side redesign does not apply; kept as a cited
     port per the never-copy rule.
     """
     n_samples, n_features = data.shape

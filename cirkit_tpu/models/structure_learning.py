@@ -21,7 +21,7 @@ Everything here is one-shot host-side numpy preprocessing (like
 ChowLiuTree) producing a symbolic :class:`~cirkit_tpu.symbolic.Circuit`
 with constant-initialized *learnable* parameters: plain normalized sum
 weights and leaf probabilities, so the learned circuit is immediately
-normalized, EM-eligible (``fit_em``) and fine-tunable (``fit``) on TPU.
+normalized, EM-eligible (``fit_em``) and fine-tunable (``fit``).
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""TPU-native fused kernels for the hot circuit contractions."""
+"""The log-einsum-exp contractions of the circuit hot path."""
 
 from cirkit_tpu.ops.lse_einsum import (
     lse_matmul,

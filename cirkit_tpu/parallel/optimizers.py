@@ -1,24 +1,21 @@
 """Low-memory optimizers for HBM-bound parameter updates.
 
-The flagship circuit's Adam update is half of the measured train step: ~28
-bytes of p/g/mu/nu HBM traffic per parameter per step (docs/PERF.md). Storing
-the Adam moments in bfloat16 cuts that to ~20 bytes (and the optimizer-state
-memory in half) while computing every update in float32.
+The flagship circuit's Adam update moves ~28 bytes of p/g/mu/nu HBM traffic
+per parameter per step. Storing the Adam moments in bfloat16 cuts that to
+~20 bytes (and the optimizer-state memory in half) while computing every
+update in float32.
 
 Plain round-to-nearest bf16 moments would *stall* the second-moment EMA:
 ``(1 - b2) = 1e-3`` relative increments fall below bf16's ~2^-8 relative
 resolution, so ``nu`` stops moving once it is warm. Both moments are instead
 written back with **stochastic rounding**, which is unbiased — the EMA is
-preserved in expectation (the same argument as the ``CIRKIT_TPU_FAST=sr``
-kernel mode, ops/lse_einsum.py).
+preserved in expectation.
 
-Measured on the 421M-parameter flagship (v5e): the rounding bits are the
-overhead to manage. They must come from the **rbg** PRNG (threefry costs
-24 ms per 1.7 GB of u32s vs 9.4 ms hardware rbg), and XLA *materializes*
-the generated bits to HBM, so their volume counts as traffic: a u32 per
-parameter erases the win (bare update 17.1 ms vs f32's 16.6), a u16 per
-parameter lands at 14.2 ms against an 11.8 ms no-rng floor. One u16 draw
-therefore serves both moments: mu adds the bits as-is, nu adds a
+The rounding bits are the overhead to manage: XLA *materializes* the
+generated bits to HBM, so their volume counts as traffic, and a u32 per
+parameter would cost as many bytes as the bf16 moments save. The bits come
+from the **rbg** PRNG, and one u16 draw serves both moments: mu adds the
+bits as-is, nu adds a
 multiplicative-hash scramble of them (a bijection on 16-bit values, so
 both streams are marginally uniform and each cast stays unbiased; the
 mu/nu rounding errors are correlated but individually tiny).
@@ -66,9 +63,9 @@ def _sr_to_bf16(x: jnp.ndarray, rnd16: jnp.ndarray) -> jnp.ndarray:
 
 
 def _rbg_bits16(seed: int, leaf_idx: int, count: jnp.ndarray, shape) -> jnp.ndarray:
-    """One u16 of rounding entropy per element from the rbg PRNG (the
-    hardware RngBitGenerator on TPU — threefry is ~2.6x more expensive at
-    this volume). The key is derived from (seed, leaf, step), so the state
+    """One u16 of rounding entropy per element from the rbg PRNG (XLA's
+    RngBitGenerator, cheaper per bit than threefry's hash rounds). The key
+    is derived from (seed, leaf, step), so the state
     needs no key array and updates stay deterministic given the seed."""
     data = jnp.array([seed & 0xFFFFFFFF, leaf_idx, 0x5EEDB175, 0], jnp.uint32)
     data = data.at[3].set(count.astype(jnp.uint32))

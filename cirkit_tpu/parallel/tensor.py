@@ -1,16 +1,16 @@
 """Tensor-parallel circuit evaluation: model parallelism over the unit axis.
 
-A new capability relative to the reference (single-device, SURVEY.md §2.7),
-designed for TPU meshes: every layer's *output-unit* axis is sharded over a
+A new capability relative to the reference (single-device, SURVEY.md §2.7):
+every layer's *output-unit* axis is sharded over a
 ``model`` mesh axis — sum/CPT/Tucker weights split by output unit, input
 layers by unit — while the contractions' *input*-unit axes stay full via an
-``all_gather`` of the (small) activations over ICI. Circuit activations are
+``all_gather`` of the (small) activations. Circuit activations are
 (F, B, K) with K = 64-ish, so the gathered traffic is tiny compared to the
 weight reads the sharding saves; this is the standard "shard the big tensor,
 gather the small one" recipe.
 
 Written with ``shard_map``: inside the mapped function every array is the
-per-device shard and the collectives are explicit, so the Pallas kernels
+per-device shard and the collectives are explicit, so the contractions
 run unchanged on local shapes. Gradients: the all_gathers transpose to
 reduce-scatters automatically; replicated-parameter gradients are
 ``psum``-ed over the model axis and everything is ``pmean``-ed over the
@@ -124,9 +124,8 @@ def tp_routing_descriptor(
     routing passes run manually partitioned under ``shard_map``: a
     :class:`cirkit_tpu.backend.jax.queries.TPRouting` (mesh-axis name, shard
     count, per-plan-entry sharded flags) plus the per-slot PartitionSpecs
-    matching :func:`shard_store_tp`'s placement. Pallas kernels then see
-    only local weight shards — GSPMD never has to partition (or gather
-    around) an opaque kernel call."""
+    matching :func:`shard_store_tp`'s placement. The contractions then see
+    only local weight shards, with explicit collectives between them."""
     from cirkit_tpu.backend.jax.queries import TPRouting
 
     num_shards = mesh.shape[model_axis]

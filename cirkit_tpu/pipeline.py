@@ -57,7 +57,7 @@ class PipelineContext(AbstractContextManager):
 
     @classmethod
     def from_default_backend(cls) -> "PipelineContext":
-        """The default TPU configuration: log-space, folded, optimized."""
+        """The default configuration: log-space, folded, optimized."""
         return PipelineContext(backend="jax", semiring="lse-sum", fold=True, optimize=True)
 
     # -- context management ----------------------------------------------------

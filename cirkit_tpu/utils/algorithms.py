@@ -1,6 +1,6 @@
 """Generic DAG containers and traversals.
 
-TPU-native rebuild of the reference's graph substrate
+Rebuild of the reference's graph substrate
 (``cirkit/utils/algorithms.py:8-219``). These drive region graphs, symbolic
 circuits, parameter graphs and the compiled evaluation plans alike. Everything
 here is pure Python and trace-time only: nothing touches device arrays.

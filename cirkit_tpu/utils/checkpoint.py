@@ -1,6 +1,6 @@
 """Checkpointing for parameter stores and training state.
 
-The TPU-native replacement for the reference's ``torch.save(state_dict)``
+The JAX replacement for the reference's ``torch.save(state_dict)``
 round-trip (ref: ``tests/backend/torch/test_serialization.py:17-32``): a
 compiled circuit's entire mutable state is a flat pytree (the parameter
 store, and optionally optimizer state / QPC network parameters), so
@@ -184,8 +184,8 @@ def place_replicated(tree: Any, mesh: Any | None = None) -> Any:
 
 
 def save_checkpoint(path: str | PathLike[str], tree: Any) -> None:
-    """Save a pytree as an orbax directory checkpoint (TPU-native: sharded
-    arrays are written distributed and restored with their sharding)."""
+    """Save a pytree as an orbax directory checkpoint (sharded arrays are
+    written distributed and restored with their sharding)."""
     import orbax.checkpoint as ocp
 
     ckptr = ocp.StandardCheckpointer()

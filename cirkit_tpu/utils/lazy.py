@@ -2,11 +2,10 @@
 
 ``import cirkit_tpu`` is on the critical path of time-to-first-batch for
 every process; with the warm-compile cache (backend/jax/warmcache.py) a
-second process replays serialized executables and never traces a kernel,
-builds an optimizer, or runs an independence test — yet the eager imports
-of ``jax.experimental.pallas`` (~1.3 s), ``scipy.stats`` (~1.9 s) and
-``optax`` (~0.5 s) made it pay for all three anyway (measured with
-``python -X importtime``, r5). The reference has no equivalent cost: torch
+second process replays serialized executables and never builds an
+optimizer or runs an independence test — yet eager imports of
+``scipy.stats`` and ``optax`` would make it pay for both anyway (see
+``python -X importtime``). The reference has no equivalent cost: torch
 imports once and its module construction is the whole startup story
 (BASELINE.md row 1).
 

@@ -1,6 +1,6 @@
 """Variable scopes.
 
-TPU-native rebuild of the reference's scope container
+JAX-side rebuild of the reference's scope container
 (``cirkit/utils/scope.py:4-192``): an immutable, hashable set of variable ids
 with set algebra. We additionally guarantee iteration in ascending id order
 (the reference implicitly relies on this for differentiation ordering, see

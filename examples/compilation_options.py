@@ -55,7 +55,7 @@ def main() -> None:
     t_folded = bench(True, False, units, side)
     t_optimized = bench(True, True, units, side)
     print(f"folding speed-up:           {t_unfolded / t_folded:6.1f}x")
-    print(f"fusion (+kernels) speed-up: {t_folded / t_optimized:6.1f}x more")
+    print(f"fusion speed-up:            {t_folded / t_optimized:6.1f}x more")
 
 
 if __name__ == "__main__":

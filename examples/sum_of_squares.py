@@ -5,8 +5,7 @@ distribution, but |c(x)|^2 is an unnormalized one, and it stays tractable:
 conjugate, multiply and integrate are circuit operators. This mirrors the
 reference's SoS support (complex semiring + operator suite), and then goes
 one step further: for real-parameter circuits the ``signed-lse-sum``
-semiring evaluates the same SoS pipeline as an all-f32 program — the
-TPU-native path (complex64 programs do not compile on some TPU runtimes).
+semiring evaluates the same SoS pipeline as an all-real f32 program.
 
 Run: python examples/sum_of_squares.py
 """
@@ -60,7 +59,7 @@ def main() -> None:
     p = c2 / z
     print(f"|c|^2 / Z is a distribution: sum = {p.sum():.6f}, Z = {z:.6f}")
 
-    # the same SoS pipeline under the signed (all-real, TPU-native) semiring
+    # the same SoS pipeline under the signed (all-real) semiring
     sctx = PipelineContext(semiring="signed-lse-sum", fold=True, optimize=True)
     scc = sctx.compile(sc)
     ssq = sctx.multiply(sctx.conjugate(scc), scc)

@@ -355,38 +355,6 @@ def test_map_and_conditional_accept_scope_evidence():
     np.testing.assert_array_equal(np.asarray(s1), np.asarray(s2))
 
 
-@pytest.mark.slow
-def test_map_route_kernel_matches_xla_path(monkeypatch):
-    """The fused route_tucker2 kernel (CIRKIT_TPU_FORCE_PALLAS interpret
-    mode) must reproduce the XLA downward routing exactly on an optimized
-    Tucker circuit: same assignments, same values."""
-    import jax
-
-    from cirkit_tpu.models import image_data
-
-    sc = image_data(
-        (1, 4, 4), "quad-tree-2", input_layer="categorical",
-        num_input_units=8, sum_product_layer="tucker", num_sum_units=8,
-    )
-
-    def run(force):
-        if force:
-            monkeypatch.setenv("CIRKIT_TPU_FORCE_PALLAS", "1")
-        else:
-            monkeypatch.delenv("CIRKIT_TPU_FORCE_PALLAS", raising=False)
-        ctx = PipelineContext(semiring="lse-sum", fold=True, optimize=True, seed=6)
-        cc = ctx.compile(sc)
-        rng = np.random.default_rng(7)
-        x = jnp.asarray(rng.integers(0, 256, size=(5, 16)), jnp.int32)
-        mask = jnp.asarray(rng.random((5, 16)) < 0.5)
-        return MAPQuery(cc)(x, evidence_mask=mask, store=ctx.parameters)
-
-    asg_k, val_k = run(True)
-    asg_x, val_x = run(False)
-    np.testing.assert_array_equal(np.asarray(asg_k), np.asarray(asg_x))
-    np.testing.assert_allclose(np.asarray(val_k), np.asarray(val_x), rtol=1e-5)
-
-
 def test_marginal_map_matches_enumeration():
     """marginalize_vars: argmax over the free variables of the circuit's
     max-product value with the marginalized leaves summed out — must match
@@ -422,41 +390,6 @@ def test_marginal_map_matches_enumeration():
     # max-product circuit; sanity: no overlap allowed
     with pytest.raises(ValueError, match="both observed"):
         query(x, evidence_mask=obs, marginalize_vars=Scope([0]), store=ctx.parameters)
-
-
-@pytest.mark.slow
-def test_marginal_map_runs_through_optimized_tucker(monkeypatch):
-    """MMAP through the fused tropical/routing kernels (interpret mode)
-    equals the XLA path."""
-    from cirkit_tpu.models import image_data
-
-    sc = image_data(
-        (1, 4, 4), "quad-tree-2", input_layer="categorical",
-        num_input_units=8, sum_product_layer="tucker", num_sum_units=8,
-    )
-    rng = np.random.default_rng(63)
-    x = jnp.asarray(rng.integers(0, 256, size=(5, 16)), jnp.int32)
-    obs = rng.random((5, 16)) < 0.3
-    marg = (~obs) & (rng.random((5, 16)) < 0.4)
-
-    def run(force):
-        if force:
-            monkeypatch.setenv("CIRKIT_TPU_FORCE_PALLAS", "1")
-        else:
-            monkeypatch.delenv("CIRKIT_TPU_FORCE_PALLAS", raising=False)
-        ctx = PipelineContext(semiring="lse-sum", fold=True, optimize=True, seed=8)
-        cc = ctx.compile(sc)
-        return MAPQuery(cc)(
-            x, evidence_mask=jnp.asarray(obs), marginalize_vars=jnp.asarray(marg),
-            store=ctx.parameters,
-        )
-
-    asg_k, val_k = run(True)
-    asg_x, val_x = run(False)
-    np.testing.assert_array_equal(np.asarray(asg_k), np.asarray(asg_x))
-    np.testing.assert_allclose(np.asarray(val_k), np.asarray(val_x), rtol=1e-5)
-    # marginalized entries come back as 0
-    assert (np.asarray(asg_k)[marg] == 0).all()
 
 
 def test_map_and_topk_through_collapsed_sums():
@@ -618,3 +551,98 @@ def test_max_and_parse_weight_guard_non_matmul_consumers():
         _max_weight(guarded, store)
     with pytest.raises(NotImplementedError, match="MatMul feeds"):
         _parse_weight(guarded, store)
+
+
+def _tucker_pc(rng, num_units=3, num_categories=3):
+    """Four categorical variables, Kronecker products under dense sums:
+    optimize=True fuses every Kronecker+Sum pair into a Tucker layer."""
+    from cirkit_tpu.symbolic import Circuit, KroneckerLayer, SumLayer
+    from cirkit_tpu.symbolic.layers import CategoricalLayer
+    from cirkit_tpu.utils import Scope
+
+    from tests.fixtures import const_param
+
+    def leaf(v):
+        raw = rng.uniform(0.1, 1.0, size=(num_units, num_categories))
+        return CategoricalLayer(
+            Scope([v]), num_units, num_categories=num_categories,
+            probs=const_param(raw / raw.sum(axis=1, keepdims=True)),
+        )
+
+    def normalized(shape):
+        raw = rng.uniform(0.1, 1.0, shape)
+        return const_param(raw / raw.sum(axis=1, keepdims=True))
+
+    leaves = [leaf(v) for v in range(4)]
+    k01, k23 = KroneckerLayer(num_units, arity=2), KroneckerLayer(num_units, arity=2)
+    s01 = SumLayer(num_units**2, num_units, weight=normalized((num_units, num_units**2)))
+    s23 = SumLayer(num_units**2, num_units, weight=normalized((num_units, num_units**2)))
+    root_k = KroneckerLayer(num_units, arity=2)
+    root = SumLayer(num_units**2, 1, weight=normalized((1, num_units**2)))
+    layers = leaves + [k01, k23, s01, s23, root_k, root]
+    ins = {
+        k01: leaves[:2], k23: leaves[2:], s01: [k01], s23: [k23],
+        root_k: [s01, s23], root: [root_k],
+    }
+    return Circuit(layers, ins, [root])
+
+
+def _compile_tucker(sc):
+    from cirkit_tpu.backend.jax.optimized import JaxTuckerLayer
+
+    ctx = PipelineContext(semiring="lse-sum", fold=True, optimize=True)
+    cc = ctx.compile(sc)
+    assert any(isinstance(e.layer, JaxTuckerLayer) for e in cc._entries)
+    return ctx, cc
+
+
+@pytest.mark.parametrize(
+    "observed", [[-1, -1, -1, -1], [2, -1, -1, -1], [-1, 0, -1, 1]],
+    ids=["none", "var0", "vars1-3"],
+)
+def test_map_tucker_matches_enumeration(observed):
+    """MAP with evidence through fused Tucker layers: the exhaustive
+    max-product oracle's completion and value."""
+    sc = _tucker_pc(np.random.default_rng(64))
+    ctx, cc = _compile_tucker(sc)
+    observed = np.asarray(observed)
+    x = np.where(observed < 0, 0, observed)[None].astype(np.int64)
+    asg, val = MAPQuery(cc)(x, evidence_mask=(observed >= 0)[None], store=ctx.parameters)
+    want_asg, want_val = mpe_by_enumeration(sc, 3, observed=observed)
+    np.testing.assert_array_equal(np.asarray(asg[0]).astype(int), want_asg)
+    np.testing.assert_allclose(float(val[0]), np.log(want_val), rtol=1e-9)
+
+
+@pytest.mark.parametrize(
+    "observed", [[-1, -1, -1, -1], [1, -1, -1, 2]], ids=["none", "vars0-3"]
+)
+def test_conditional_sampling_tucker_matches_enumeration(observed):
+    """Conditional draws through fused Tucker layers follow the enumerated
+    posterior p(x_free | x_obs); the log-evidence is exact."""
+    import jax
+
+    from cirkit_tpu.backend.jax.queries import SamplingQuery
+
+    from tests.reference_eval import enumerate_worlds, eval_circuit
+
+    sc = _tucker_pc(np.random.default_rng(65))
+    ctx, cc = _compile_tucker(sc)
+    observed = np.asarray(observed)
+    obs = observed >= 0
+    n = 20000
+    x = np.tile(np.where(obs, observed, 0), (n, 1)).astype(np.int64)
+    samples, le = SamplingQuery(cc).conditional(
+        x, evidence_mask=np.tile(obs, (n, 1)), key=jax.random.PRNGKey(3),
+        store=ctx.parameters,
+    )
+    samples = np.asarray(samples).astype(int)
+    np.testing.assert_array_equal(samples[:, obs], x[:, obs])
+
+    worlds = enumerate_worlds(4, 3)
+    keep = ((worlds == observed[None]) | ~obs[None]).all(axis=1)
+    p = eval_circuit(sc, worlds[keep])[:, 0, 0]
+    np.testing.assert_allclose(np.asarray(le), np.log(p.sum()), rtol=1e-9, atol=1e-12)
+    index = {tuple(w): i for i, w in enumerate(worlds[keep])}
+    counts = np.bincount([index[tuple(s)] for s in samples], minlength=len(p))
+    tv = 0.5 * np.abs(counts / n - p / p.sum()).sum()
+    assert tv < 0.04, tv

@@ -98,6 +98,22 @@ def _build_qpc(num_units=4, method="trapezoidal"):
 
 
 @pytest.mark.slow
+@pytest.mark.parametrize("g_in", [1, 5])
+def test_grouped_linear_matches_per_group_matmul(g_in):
+    """A shared input (one group) meets every group's weight without a
+    per-group copy; both forms agree with one matmul per group."""
+    from cirkit_tpu.backend.jax.pic import _grouped_linear
+
+    rng = np.random.default_rng(0)
+    x = jnp.asarray(rng.normal(size=(g_in, 7, 3)), jnp.float32)
+    w = jnp.asarray(rng.normal(size=(5, 3, 2)), jnp.float32)
+    b = jnp.asarray(rng.normal(size=(5, 2)), jnp.float32)
+    got = np.asarray(_grouped_linear(x, w, b))
+    xs = np.broadcast_to(np.asarray(x, np.float64), (5, 7, 3))
+    want = np.stack([xs[g] @ np.asarray(w[g], np.float64) + np.asarray(b[g]) for g in range(5)])
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
 def test_pc2qpc_normalized_and_evaluates():
     qpc, qp = _build_qpc()
     store = qp.materialize()

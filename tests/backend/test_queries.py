@@ -714,13 +714,10 @@ def test_posterior_covariance_gaussian_closed_form():
         q.covariance(x, evidence_mask=mask, variables=(0, 5), store=ctx.parameters)
 
 
-@pytest.mark.slow
-def test_posterior_covariance_with_kernels_forced(monkeypatch):
-    """The covariance program takes jvp-over-grad, which the Pallas
-    kernels cannot (custom VJP only): the query must trace its program on
-    the XLA fallback even when kernels are active (regression: on TPU the
-    jvp raised 'Differentiation rule for repeat not implemented'), and
-    the result must match the plain path."""
+def test_posterior_covariance_through_tucker_layers():
+    """The covariance program takes jvp-over-grad through the Tucker
+    contractions and their safe log (a custom VJP): the off-diagonals of
+    the Hessian-built rows must come out finite and symmetric."""
     import jax.numpy as jnp
 
     from cirkit_tpu.backend.jax.queries import ExpectationQuery
@@ -733,23 +730,17 @@ def test_posterior_covariance_with_kernels_forced(monkeypatch):
     rng = np.random.default_rng(100)
     x = jnp.asarray(rng.integers(0, 256, size=(3, 16)), jnp.int32)
     mask = jnp.asarray(rng.random((3, 16)) < 0.5)
-
-    def run(force):
-        if force:
-            monkeypatch.setenv("CIRKIT_TPU_FORCE_PALLAS", "1")
-        else:
-            monkeypatch.delenv("CIRKIT_TPU_FORCE_PALLAS", raising=False)
-        ctx = PipelineContext(semiring="lse-sum", fold=True, optimize=True, seed=24)
-        cc = ctx.compile(sc)
-        return np.asarray(
-            ExpectationQuery(cc).covariance(
-                x, evidence_mask=mask, variables=(1, 5, 9), store=ctx.parameters
-            )
+    ctx = PipelineContext(semiring="lse-sum", fold=True, optimize=True, seed=24)
+    cc = ctx.compile(sc)
+    free = [v for v in range(16) if not bool(mask[0, v])][:3]
+    cov = np.asarray(
+        ExpectationQuery(cc).covariance(
+            x[:1], evidence_mask=mask[:1], variables=tuple(free), store=ctx.parameters
         )
-
-    got = run(True)
-    want = run(False)
-    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    )
+    assert np.isfinite(cov).all()
+    np.testing.assert_allclose(cov[0], cov[0].T, rtol=1e-6, atol=1e-6)
+    assert (np.diag(cov[0]) > 0).all()
 
 
 def test_posterior_variance_gaussian_closed_form():

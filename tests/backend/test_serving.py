@@ -1,6 +1,5 @@
 """bf16-resident weight stores: slot detection, fast-grade forward accuracy
-through the Pallas kernels (interpret mode) and the XLA fallback, and query
-compatibility."""
+and query compatibility."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -20,12 +19,9 @@ def _circuit(sp, optimize=True, seed=4):
     return ctx, ctx.compile(sc)
 
 
-@pytest.mark.parametrize("force_pallas", [False, True])
 @pytest.mark.parametrize("sp", ["cp", "tucker"])
 @pytest.mark.slow
-def test_bf16_weight_store_fast_grade_forward(sp, force_pallas, monkeypatch):
-    if force_pallas:
-        monkeypatch.setenv("CIRKIT_TPU_FORCE_PALLAS", "1")
+def test_bf16_weight_store_fast_grade_forward(sp):
     ctx, cc = _circuit(sp)
     store32 = {k: jnp.asarray(v, jnp.float32) for k, v in cc.restrict_store(ctx.parameters).items()}
     storebf = bf16_weight_store(cc, store32)
@@ -43,8 +39,7 @@ def test_bf16_weight_store_fast_grade_forward(sp, force_pallas, monkeypatch):
 
 
 @pytest.mark.slow
-def test_bf16_weight_store_queries_run(monkeypatch):
-    monkeypatch.setenv("CIRKIT_TPU_FORCE_PALLAS", "1")
+def test_bf16_weight_store_queries_run():
     import jax
 
     from cirkit_tpu.backend.jax import IntegrateQuery, MAPQuery

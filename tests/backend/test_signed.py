@@ -1,4 +1,4 @@
-"""Signed log-semiring tests: the TPU-native (all-real) alternative to the
+"""Signed log-semiring tests: the all-real alternative to the
 complex semiring for circuits with real parameters but possibly-negative
 values — squared/SoS circuits, differentials (new capability; the reference
 evaluates these under complex, ``backend/torch/semiring.py:411-476``)."""

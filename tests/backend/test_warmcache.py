@@ -1,14 +1,12 @@
 """The transparent warm-compile cache (backend/jax/warmcache.py).
 
-On remote-compile TPU platforms every jit costs 2-7 s and jax's persistent
-cache is bypassed; the warm cache serializes compiled executables to disk
-keyed by (circuit fingerprint, arg shapes, device/env fingerprint) so a
-SECOND process deserializes instead of compiling — automatically, with no
-bundle-management code (closing VERDICT r4 "Missing #1"; the explicit
-bundle API in warmstart.py remains for zero-Python-rebuild startup).
+The warm cache serializes compiled executables to disk keyed by (circuit
+fingerprint, arg shapes, device/env fingerprint) so a SECOND process
+deserializes instead of tracing and compiling — automatically, with no
+bundle-management code (the explicit bundle API in warmstart.py remains
+for zero-Python-rebuild startup).
 
-The cache is disabled on CPU by default; tests force it on with the
-CIRKIT_TPU_CACHE env override.
+The cache is off unless CIRKIT_TPU_CACHE names its directory.
 """
 
 import json
@@ -49,14 +47,28 @@ def test_fingerprint_separates_structures():
 
 def test_cache_disabled_on_cpu_by_default(monkeypatch):
     monkeypatch.delenv("CIRKIT_TPU_CACHE", raising=False)
-    monkeypatch.delenv("CIRKIT_TPU_NO_CACHE", raising=False)
     assert W.cache_dir() is None  # test suite runs on the CPU backend
 
 
-def test_no_cache_env_wins(monkeypatch, tmp_path):
-    monkeypatch.setenv("CIRKIT_TPU_CACHE", str(tmp_path))
-    monkeypatch.setenv("CIRKIT_TPU_NO_CACHE", "1")
+@pytest.mark.parametrize("backend", ["gpu", "rocm"])
+def test_cache_off_without_dir_on_any_backend(monkeypatch, backend):
+    monkeypatch.delenv("CIRKIT_TPU_CACHE", raising=False)
+    monkeypatch.setattr(jax, "default_backend", lambda: backend)
     assert W.cache_dir() is None
+
+
+def test_env_fingerprint_keys_the_matmul_precision():
+    plain = W._env_fingerprint()
+    with jax.default_matmul_precision("highest"):
+        assert W._env_fingerprint() != plain
+
+
+@pytest.mark.parametrize("value", ["dir", ""])
+def test_cache_dir_is_the_env_dir(monkeypatch, tmp_path, value):
+    """``CIRKIT_TPU_CACHE`` alone turns the cache on; empty leaves it off."""
+    path = str(tmp_path) if value else ""
+    monkeypatch.setenv("CIRKIT_TPU_CACHE", path)
+    assert W.cache_dir() == (tmp_path if value else None)
 
 
 def test_cached_jit_round_trip_and_corruption_fallback(monkeypatch, tmp_path):

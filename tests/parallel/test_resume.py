@@ -169,7 +169,7 @@ def test_fit_em_resume_continues_epochs(tmp_path):
 def test_fit_sigterm_checkpoints_and_resumes(tmp_path):
     """Graceful preemption: SIGTERM during a checkpointing fit() writes a
     final checkpoint and raises Preempted; the resumed run reproduces the
-    uninterrupted one (preemptible TPU slices signal eviction this way)."""
+    uninterrupted one (preemptible machines signal eviction this way)."""
     import os
     import signal
 

@@ -1,15 +1,12 @@
-"""Tensor-parallel MAP / conditional sampling with the fused Pallas kernels.
+"""Tensor-parallel MAP / conditional sampling, manually partitioned.
 
 The GSPMD path (tests/parallel via the dryrun) proves TP-sharded stores give
-correct query answers, but GSPMD treats Pallas calls as opaque and gathers
-the sharded weights around them. These tests pin the *manually partitioned*
-path (``MAPQuery(cc, mesh=...)`` / ``SamplingQuery(cc, mesh=...)``,
+correct query answers. These tests pin the *manually partitioned* path
+(``MAPQuery(cc, mesh=...)`` / ``SamplingQuery(cc, mesh=...)``,
 ``queries.TPRouting``): the routing passes run under ``shard_map``, every
-kernel sees only its local weight shard, and the cross-shard combines are
-explicit collectives. With ``CIRKIT_TPU_FORCE_PALLAS=1`` the fused
-lse/tropical/routing kernels themselves execute (interpret mode) on the
-local shapes — the configuration the reference has no counterpart for
-(single-device torch; SURVEY.md §2.7)."""
+contraction sees only its local weight shard, and the cross-shard combines
+are explicit collectives — the configuration the reference has no
+counterpart for (single-device torch; SURVEY.md §2.7)."""
 
 import numpy as np
 import pytest
@@ -74,39 +71,18 @@ def test_tp_queries_match_single_device_xla():
     _assert_tp_matches(cc, store, _mesh((2, 4), ("model", "data")), x, mask)
 
 
-def test_tp_queries_force_pallas_kernels_on_local_shards(monkeypatch):
-    """The headline pin: fused kernels (interpret mode) on LOCAL weight
-    shards == single-device, with the kernels engaged on both sides."""
-    monkeypatch.setenv("CIRKIT_TPU_FORCE_PALLAS", "1")
-    cc, store = _compile()
-    x, mask = _data()
-    # units=16 over model=2 -> local O=8: the fused kernels' minimum width,
-    # so the tropical/route kernels genuinely engage on the local shapes
-    from cirkit_tpu.ops.lse_einsum import tropical_tucker2
-
-    f32 = np.float32
-    probe = tropical_tucker2(
-        np.zeros((1, 8, 16), f32), np.zeros((1, 8, 16), f32),
-        np.zeros((1, 8, 256), f32), log_weights=True, interpret=True,
-    )
-    assert probe is not None, "local shard shapes must stay on the fused kernel"
-    _assert_tp_matches(cc, store, _mesh((2, 4), ("model", "data")), x, mask)
-
-
 @pytest.mark.slow
 @pytest.mark.parametrize(
     "shape,axes", [((4, 2), ("model", "data")), ((8,), ("model",))]
 )
-def test_tp_queries_force_pallas_mesh_grid(monkeypatch, shape, axes):
-    monkeypatch.setenv("CIRKIT_TPU_FORCE_PALLAS", "1")
+def test_tp_queries_mesh_grid(shape, axes):
     cc, store = _compile()
     x, mask = _data()
     _assert_tp_matches(cc, store, _mesh(shape, axes), x, mask)
 
 
 @pytest.mark.slow
-def test_tp_marginal_map_matches_single_device(monkeypatch):
-    monkeypatch.setenv("CIRKIT_TPU_FORCE_PALLAS", "1")
+def test_tp_marginal_map_matches_single_device():
     cc, store = _compile()
     x, mask = _data()
     rng = np.random.default_rng(3)

@@ -58,6 +58,29 @@ def test_fit_multichip_matches_single_chip():
     np.testing.assert_allclose(losses_1, losses_8, rtol=1e-8)
 
 
+@pytest.mark.parametrize("optimizer", ["adam", "adam_lowmem"])
+def test_fit_on_a_mesh_compiles_its_step_once(monkeypatch, optimizer):
+    """The fresh optimizer state is placed like the step's outputs, so the
+    second step reuses the first step's program."""
+    import cirkit_tpu.parallel.training as T
+    from cirkit_tpu.parallel.optimizers import adam_lowmem
+
+    made = []
+
+    def spy(*args, **kwargs):
+        made.append(data_parallel_step(*args, **kwargs))
+        return made[-1]
+
+    monkeypatch.setattr(T, "data_parallel_step", spy)
+    ctx = PipelineContext(semiring="lse-sum", fold=True)
+    cc = _small_image_circuit(ctx)
+    data = np.random.default_rng(3).integers(0, 256, size=(32, 16))
+    opt = optax.adam(1e-2) if optimizer == "adam" else adam_lowmem(1e-2)
+    _, losses = fit(cc, data, num_epochs=3, batch_size=16, optimizer=opt, mesh=default_mesh(2))
+    assert len(losses) == 6 and np.isfinite(losses).all()
+    assert made[0]._cache_size() == 1
+
+
 def test_data_parallel_step_shards_batch():
     mesh = default_mesh(8)
     ctx = PipelineContext(semiring="lse-sum", fold=True)

@@ -316,8 +316,7 @@ def test_random_circuit_query_consistency(seed):
     """Query fuzz over the same random topologies: MAP vs the exhaustive
     max-product oracle, conditional-sampling log-evidence vs IntegrateQuery,
     expectations vs the enumerated posterior — all on the folded+optimized
-    compile (kernel-path routing under CIRKIT_TPU_FORCE_PALLAS runs in the
-    dedicated kernel tests; here the XLA formulations are the target)."""
+    compile."""
     import jax
     import jax.numpy as jnp
 

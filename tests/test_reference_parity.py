@@ -523,7 +523,7 @@ def test_quadgraph_flagship_structure_parity(sum_product):
 
 
 def test_signed_semiring_sos_parity_with_reference_complex():
-    """The signed-lse-sum semiring (this repo's TPU-native SoS path; the
+    """The signed-lse-sum semiring (this repo's all-real SoS path; the
     reference has no analogue) must agree with the reference torch backend
     running the same squared circuit under its complex semiring."""
     v = _values_embedding(np.random.default_rng(9))
